@@ -2,12 +2,14 @@
 """Where the time goes in the port's serve loop, on one CUDA GPU.
 
     python3 benchmarks/torch_fleet_profile.py [--workers 131072] \\
-        [--ticks 200] [--kernel cuda] [--trace out.json]
+        [--ticks 200] [--kernel cuda|q32|f64] [--trace out.json]
 
-Builds the fleet of ``chip_smoke.py``'s main path (RF/SOM/SIM/SOR/SIR over
+Builds the fleet of ``chip_smoke.py``'s main paths (RF/SOM/SIM/SOR/SIR over
 32 trace rows, har/harris/lm at 0.4/0.3/0.3, workers/10 requests per
-second, batches of 4, dispatch every 10 ticks, reactive routing, seed 0),
-serves a warm-up window, then serves ``--ticks`` more under
+second, batches of 4, dispatch every 10 ticks, reactive routing, seed 0)
+with the chosen device tick (the int32 serve-tick kernel, its plain
+version, or the float64 tick with the harvest kernel), serves a warm-up
+window, then serves ``--ticks`` more under
 ``torch.profiler`` and prints: wall time per tick, device busy time (the
 sum of the CUDA kernels' self time) and the device idle share of the
 window, kernel launches per tick, host synchronisations per tick, and the
@@ -37,7 +39,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=200)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--audit", type=int, default=20)
-    ap.add_argument("--kernel", choices=("cuda", "q32"), default="cuda")
+    ap.add_argument("--kernel", choices=("cuda", "q32", "f64"),
+                    default="cuda")
     ap.add_argument("--trace", default="",
                     help="also write a Chrome trace of the window here")
     args = ap.parse_args(argv)

@@ -1,10 +1,11 @@
 """Energy environment: harvested-power traces, the capacitor buffer, the
-MCU energy model, and the integer-quanta capacitor ops of the serve tick.
+MCU energy model, and the capacitor ops of the float64 and int32 ticks.
 
 Trace synthesis and quantization run on the host in numpy, seeded exactly
 as in ``repro.core.energy``, so a power matrix built from the same seed is
-bit-identical to the reference's. The ``capacitor_*_q`` helpers act on
-torch tensors (int32 quanta) on any device.
+bit-identical to the reference's. The ``capacitor_*`` helpers (float64
+volts and joules) and the ``capacitor_*_q`` helpers (int32 quanta) act on
+torch tensors on any device.
 """
 from __future__ import annotations
 
@@ -181,6 +182,50 @@ def get_trace(name: str, **kw) -> EnergyTrace:
 
 
 # ---------------------------------------------------------------------------
+# Float64 capacitor (the float64 tick)
+# ---------------------------------------------------------------------------
+
+# Each expression keeps the reference's operand order, and every op rounds
+# once to nearest, like numpy's, so the results are bit-identical to it.
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float64 square root on any device.
+
+    CUDA's double ``sqrt`` is IEEE round-to-nearest. PyTorch's CPU
+    ``sqrt`` goes through MKL's vector math in its high-accuracy mode,
+    which is up to 1 ulp off on some inputs, so CPU tensors
+    take numpy's IEEE square root, the one the reference computes."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def capacitor_harvest(v, power_w, dt, *, capacitance_f, booster_eff, v_max):
+    """New voltage after banking ``power_w * dt``, saturating at ``v_max``
+    (the plain version of the ``harvest_step`` kernel)."""
+    e = 0.5 * capacitance_f * v * v + booster_eff * power_w * dt
+    return torch.minimum(sqrt_rn(2.0 * e / capacitance_f), v_max)
+
+
+def capacitor_usable_energy(v, *, capacitance_f, v_off):
+    """Joules above the brown-out voltage: the budget every policy reads."""
+    e = 0.5 * capacitance_f * (v * v - v_off * v_off)
+    return torch.clamp(e, min=0.0)
+
+
+def capacitor_draw(v, energy_j, *, capacitance_f, v_off):
+    """``(new_v, ok)``: a draw that would cross the brown-out floor fails
+    (``ok`` False) and lands at ``v_off``, the residual charge retained."""
+    e = 0.5 * capacitance_f * v * v - energy_j
+    floor = 0.5 * capacitance_f * v_off * v_off
+    ok = ~torch.lt(e, floor)
+    e_safe = torch.where(ok, e, floor)
+    return torch.where(ok, sqrt_rn(2.0 * e_safe / capacitance_f),
+                       v_off), ok
+
+
+# ---------------------------------------------------------------------------
 # Integer energy quanta (the serve-tick numerics contract)
 # ---------------------------------------------------------------------------
 
@@ -230,7 +275,7 @@ def capacitor_draw_q(eq: torch.Tensor, amount_q: torch.Tensor,
 class Capacitor:
     """Energy buffer constants: the paper's 1470 uF buffer behind a
     BQ25505 booster, with MSP430FR turn-on / brown-out thresholds. The
-    float64 voltage methods of the reference come with the float64 tick."""
+    fleet reads the constants; the float64 capacitor ops are above."""
 
     capacitance_f: float = 1470e-6
     v_on: float = 3.5  # booster releases the load

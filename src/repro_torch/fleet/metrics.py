@@ -10,12 +10,15 @@ from __future__ import annotations
 import numpy as np
 
 
-def _energy_block(fs, quantum_j: float, completed: int) -> dict:
-    """Energy ledger of a quantized pool state (numpy), in joules."""
-    harvested = float(fs.e_harvest.sum()) * quantum_j
-    work = float(fs.e_work.sum()) * quantum_j
+def _energy_block(fs, quantum_j: float | None, completed: int) -> dict:
+    """Energy ledger of a pool state (numpy), in joules: a quantized
+    state's integer quanta are scaled by ``quantum_j``, a float64 state
+    (``quantum_j`` None) already holds joules."""
+    e_scale = 1.0 if quantum_j is None else quantum_j
+    harvested = float(fs.e_harvest.sum()) * e_scale
+    work = float(fs.e_work.sum()) * e_scale
     # approximate runtime: structurally 0.0 (no NVM state machine)
-    nvm = float(np.asarray(fs.e_persist).sum()) * quantum_j
+    nvm = float(np.asarray(fs.e_persist).sum()) * e_scale
     return {
         "harvested_j": harvested,
         "work_j": work,
@@ -70,7 +73,8 @@ def sched_summary(sp, ss, duration_s: float, fs=None, quantum_j=None,
                   workload_names: list[str] | None = None) -> dict:
     """Summary dict from the control plane's numpy counters (``sp`` /
     ``ss``: SchedParams / numpy SchedState), plus the energy block of the
-    numpy pool state ``fs`` when given."""
+    numpy pool state ``fs`` (energies in quanta of ``quantum_j``, or in
+    joules when that is None) when given."""
     completed = int(ss.completed)
     out: dict = {
         "submitted": int(ss.submitted),

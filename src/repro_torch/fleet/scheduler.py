@@ -71,6 +71,7 @@ class FleetScheduler:
 
     def summary(self, duration_s: float) -> dict:
         fs, ss = to_numpy(self.pool.state, self.state)
+        # quantum_j is None for a float64 pool: its ledger is in joules
         return sched_summary(self.params, ss, duration_s, fs,
                              self.pool.params.quantum_j,
                              [w.name for w in self.workloads])

@@ -1,11 +1,12 @@
 """Struct-of-arrays fleet state: the contract between the host and the device.
 
 ``FleetParams`` is everything static about a fleet run (trace bank, stacked
-workload tables, capacitor constants) and stays host-side numpy, exactly as
-in ``repro.fleet.state``. ``FleetState`` holds one length-N tensor per
-field on the run's device; in this slice it is the int32-quantized dispatch
-contract of the serve tick (``init_state``). ``SchedParams`` (numpy
-constants) and ``SchedState`` (tensors) are the control plane's.
+workload tables, capacitor constants, local-mode policy) and stays
+host-side numpy, exactly as in ``repro.fleet.state``. ``FleetState`` holds
+one length-N tensor per field on the run's device, in the float64 contract
+(volts, joules, seconds, int64 counters) or the int32-quantized one of the
+serve-tick kernel (``init_state``). ``SchedParams`` (numpy constants) and
+``SchedState`` (tensors) are the control plane's.
 
 ``from_reference`` / ``to_numpy`` move the reference's numpy dataclasses in
 and out with every dtype kept, so the differential tests feed both sides
@@ -19,16 +20,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import policies
 from repro_torch.core.budget import CostTable
+from repro_torch.core.policies import Policy
 
 
 @dataclasses.dataclass(frozen=True)
 class FleetParams:
-    """Static per-run configuration of a dispatch-mode fleet (numpy)."""
+    """Static per-run configuration of a fleet (numpy)."""
 
     dt: float
     n: int  # workers
     T: int  # trace length (ticks)
+    mode: str  # "local" | "dispatch"
     power: np.ndarray  # (R, T) harvested power, W
     trace_index: np.ndarray  # (N,) worker -> trace row
     phase: np.ndarray | None  # (N,) tick offset into the row, or None
@@ -43,9 +47,15 @@ class FleetParams:
     FIX: np.ndarray  # (W,)
     EMITC: np.ndarray  # (W,)
     NU: np.ndarray  # (W,) int64
-    # energies are int32 quanta of this many joules; FleetState.v holds
-    # the stored energy E = 0.5 C v^2 in quanta
-    quantum_j: float
+    tables: tuple[CostTable, ...]
+    # local mode only
+    P: float  # sampling period, s
+    policy: Policy | None
+    acc: np.ndarray | None  # (n_units + 1,) accuracy table
+    # quantized serve tick (kernel "q32"/"cuda"): energies are int32
+    # quanta of this many joules and FleetState.v holds the stored energy
+    # E = 0.5 C v^2 in quanta. None: the float64 tick (volts, joules).
+    quantum_j: float | None = None
 
 
 @dataclasses.dataclass
@@ -53,8 +63,8 @@ class FleetState:
     """Everything one lockstep tick reads or writes; all fields (N,).
 
     Field set and order are the reference's (``repro.fleet.state``), so
-    states convert both ways; the local-mode and persistence fields ride
-    along at zero in this slice."""
+    states convert both ways; the persistence fields ride along at zero
+    in this slice."""
 
     # capacitor + lifecycle
     v: torch.Tensor
@@ -102,33 +112,35 @@ STATE_FIELDS: tuple[str, ...] = tuple(
 
 
 def init_state(n: int, *, device: torch.device | str,
-               quantized: bool = True) -> FleetState:
-    """Fresh quantized device state for ``n`` workers: discharged
-    capacitors, everything off/idle, counters zero. ``v`` holds stored
-    energy in int32 quanta; energies, counters and the acquisition tick
-    stamps ``w_t_acq``/``p_t_assigned`` are int32 (the reference's
-    ``init_state(n, quantized=True)`` dtypes)."""
-    if not quantized:
-        raise NotImplementedError(
-            "the float64 fleet state is not ported yet (quantized only)")
+               quantized: bool = False) -> FleetState:
+    """Fresh device state for ``n`` workers: discharged capacitors,
+    everything off/idle, counters zero (the reference's ``init_state``
+    dtypes). ``quantized=False`` is the float64 contract: ``v`` in volts,
+    energies in joules, times in seconds, int64 counters.
+    ``quantized=True`` is the serve-tick kernel's int32 contract: ``v``
+    holds stored energy in quanta, and energies, counters and the
+    acquisition tick stamps ``w_t_acq``/``p_t_assigned`` are int32."""
     i32, i64, f64 = torch.int32, torch.int64, torch.float64
+    e_dt = i32 if quantized else f64  # energies
+    c_dt = i32 if quantized else i64  # counters / ids
+    t_dt = i32 if quantized else f64  # acquisition times
 
-    def z(dt=i32):
+    def z(dt=c_dt):
         return torch.zeros(n, dtype=dt, device=device)
 
     def one():
-        return torch.ones(n, dtype=i32, device=device)
+        return torch.ones(n, dtype=c_dt, device=device)
 
     return FleetState(
-        v=z(), on=z(torch.bool), cycles=z(), acquired=z(), skipped=z(),
-        e_work=z(), e_harvest=z(), next_sample_t=z(f64),
+        v=z(e_dt), on=z(torch.bool), cycles=z(), acquired=z(), skipped=z(),
+        e_work=z(e_dt), e_harvest=z(e_dt), next_sample_t=z(f64),
         sample_counter=z(i64), has_work=z(torch.bool), w_ticket=z(),
-        w_t_acq=z(), w_cycle_acq=z(), w_units_done=z(), w_left=z(),
+        w_t_acq=z(t_dt), w_cycle_acq=z(), w_units_done=z(), w_left=z(e_dt),
         w_target=z(), w_tile=z(), w_wl=z(), w_batch=one(),
         p_pending=z(torch.bool), p_ticket=z(), p_wl=z(), p_units=z(),
-        p_batch=one(), p_t_assigned=z(), emit_count=z(),
+        p_batch=one(), p_t_assigned=z(t_dt), emit_count=z(),
         emit_units_sum=z(), emit_acc_sum=z(f64),
-        need_restore=z(torch.bool), ck_units=z(), e_persist=z(),
+        need_restore=z(torch.bool), ck_units=z(), e_persist=z(e_dt),
         persists=z(), restores=z())
 
 
@@ -285,24 +297,43 @@ def _arrays(obj, cls):
                   for f in dataclasses.fields(cls)})
 
 
+def _port_policy(ref_policy):
+    """The port's policy of the same class name and fields (None stays
+    None)."""
+    if ref_policy is None:
+        return None
+    cls = getattr(policies, type(ref_policy).__name__, None)
+    if not (isinstance(cls, type) and issubclass(cls, Policy)
+            and dataclasses.is_dataclass(cls)):
+        raise NotImplementedError(
+            f"policy {type(ref_policy).__name__} has no port")
+    return cls(**{f.name: getattr(ref_policy, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
 def from_reference(fleet_params=None, fleet_state=None, sched_params=None,
                    sched_state=None, *, device: torch.device | str):
     """Convert the reference's (``repro.fleet.state``) numpy dataclasses to
     the port's: ``(FleetParams, FleetState, SchedParams, SchedState)``.
 
     Arrays keep their dtypes exactly; states become tensors on ``device``,
-    params stay numpy. Any argument may be None (its slot returns None).
-    Only what this slice serves converts: a dispatch-mode, quantized fleet
-    under the approximate discipline and an unsharded control plane."""
+    params stay numpy, and the cost tables and local-mode policy become
+    the port's own classes. Any argument may be None (its slot returns
+    None). What this slice serves converts: float64 or quantized fleets,
+    local or dispatch mode, under the approximate discipline, and an
+    unsharded control plane."""
     fp = fs = sp = ss = None
     if fleet_params is not None:
-        if fleet_params.mode != "dispatch" or fleet_params.persist != "none" \
-                or fleet_params.quantum_j is None:
+        if fleet_params.persist != "none":
             raise NotImplementedError(
-                "only quantized dispatch fleets with persist='none' are "
-                "ported yet")
-        fp = FleetParams(**{f.name: getattr(fleet_params, f.name)
-                            for f in dataclasses.fields(FleetParams)})
+                "only fleets with persist='none' are ported yet")
+        fields = {f.name: getattr(fleet_params, f.name)
+                  for f in dataclasses.fields(FleetParams)}
+        fields["tables"] = tuple(
+            CostTable(c.unit_costs, emit_cost=c.emit_cost,
+                      fixed_cost=c.fixed_cost) for c in fields["tables"])
+        fields["policy"] = _port_policy(fields["policy"])
+        fp = FleetParams(**fields)
     if fleet_state is not None:
         fs = _tensors(fleet_state, FleetState, device)
     if sched_params is not None:

@@ -5,4 +5,4 @@ runs the plain version for tensors on the CPU; a failed build or launch
 raises. ``KERNELS`` maps each wrapper to its source under ``csrc/``.
 """
 
-KERNELS = {"serve_tick": "serve_tick.cu"}
+KERNELS = {"serve_tick": "serve_tick.cu", "harvest_step": "harvest_step.cu"}

@@ -1,15 +1,22 @@
-"""Fleet serving launcher of the port: the scheduled serve path on a GPU.
+"""Fleet serving launcher of the port: scheduled vs independent workers.
 
-    PYTHONPATH=src python -m repro_torch.launch.fleet --scheduler on \\
-        --workers 131072 --duration 30 --kernel cuda
+    PYTHONPATH=src python -m repro_torch.launch.fleet --workers 131072 \\
+        --duration 30 --scheduler on --kernel cuda
+    PYTHONPATH=src python -m repro_torch.launch.fleet --workers 32 \\
+        --duration 60 --scheduler both --kernel f64 --device cpu
 
 Builds a harvest-powered worker fleet over a mix of energy-trace families
 and serves one global HAR + Harris + LM request stream through the
-array-native control plane and the CUDA serve-tick kernel
-(``--kernel cuda``, the default) or its plain PyTorch twin (``--kernel
-q32``), then prints the summary as JSON. Flags are the reference's
-(``python -m repro.launch.fleet``); a value this port does not serve yet
-(the float64 tick, local-mode baselines, forecast or quality routing,
+array-native control plane (``--scheduler on``), or as independent
+self-sampling workers, the no-scheduler baseline (``off``), or both
+(``both``, the default, which also prints ``speedup_completed``), then
+prints the summary as JSON. The scheduled fleet's device tick is the CUDA
+serve-tick kernel (``--kernel cuda``, the default), its plain PyTorch
+twin (``q32``) or the float64 tick (``f64``, the reference's
+``--kernel xla``, whose harvest stage is the CUDA ``harvest_step``
+kernel); the independent baseline always runs the float64 tick, as in
+the reference. Flags are the reference's (``python -m repro.launch.fleet``);
+a value this port does not serve yet (forecast or quality routing,
 streaming, sharding, persistence, observability) exits with "not ported
 yet". ``--device`` (default ``cuda``) selects where the state lives.
 """
@@ -23,10 +30,12 @@ import numpy as np
 from repro_torch.core.energy import (TRACE_FACTORIES, Capacitor,
                                      McuEnergyModel, get_trace)
 from repro_torch.core.forecast import FORECASTER_MODES
+from repro_torch.core.policies import Greedy, Smart
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.fleet.sched import SCHED_MODES
 from repro_torch.fleet.scheduler import (FleetScheduler, RequestStream,
                                          run_fleet)
+from repro_torch.fleet.state import to_numpy
 from repro_torch.fleet.worker import FleetWorkerPool, stack_traces
 from repro_torch.fleet.workloads import (FleetWorkload, har_workload,
                                          harris_workload, lm_workload)
@@ -39,9 +48,9 @@ WORKLOAD_FACTORIES = {
 
 # reference flags whose other values this port does not serve yet
 PORTED_VALUES = {
-    "scheduler": ("on",),
+    "scheduler": ("on", "off", "both"),
     "backend": ("torch",),
-    "kernel": ("q32", "cuda"),
+    "kernel": ("q32", "cuda", "f64"),
     "mesh_fleet": (1,),
     "rebalance_every": (0.0,),
     "fleet_placement": ("auto",),
@@ -180,6 +189,73 @@ def run_scheduled(power: np.ndarray, dt: float, n_workers: int,
     return summary
 
 
+def run_independent(power: np.ndarray, dt: float, n_workers: int,
+                    workloads: list[FleetWorkload], *, mix: np.ndarray,
+                    period_s: float, n_steps: int, seed: int = 0,
+                    capacitance_f: np.ndarray | None = None,
+                    v_max: np.ndarray | None = None,
+                    active_power_w: np.ndarray | None = None,
+                    device: str = DEFAULT_DEVICE) -> dict:
+    """No-scheduler baseline: workers are pinned to a workload (by the
+    request mix) and self-sample every ``period_s``, the same offered load
+    as a ``rate_rps = n_workers / period_s`` stream with no routing. One
+    local-mode pool per workload runs the float64 tick (quantized kernels
+    are dispatch-only); the accounting sums the pools' counters on the
+    host."""
+    counts = (np.asarray(mix) / np.sum(mix) * n_workers).astype(int)
+    counts[0] += n_workers - counts.sum()
+    completed = 0
+    units_sum = 0.0
+    acc_sum = 0.0
+    harvested = 0.0
+    work = 0.0
+    skipped = 0
+    per_wl = {}
+    rng = np.random.default_rng(seed)
+    start = 0
+    for wl, cnt in zip(workloads, counts):
+        if cnt == 0:
+            continue
+        sl = slice(start, start + cnt)
+        start += cnt
+        pool = FleetWorkerPool(
+            power, dt, workloads=[wl.costs], mode="local", n_workers=cnt,
+            policy=Smart(wl.floor) if wl.floor > 0 else Greedy(),
+            accuracy_table=wl.accuracy,
+            sampling_period_s=period_s,
+            trace_index=np.arange(cnt) % power.shape[0],
+            phase=rng.integers(0, power.shape[1], cnt),
+            capacitance_f=(None if capacitance_f is None
+                           else capacitance_f[sl]),
+            v_max=None if v_max is None else v_max[sl],
+            active_power_w=(None if active_power_w is None
+                            else active_power_w[sl]),
+            kernel="f64", device=device)
+        st = pool.run(n_steps)
+        s, _ = to_numpy(pool.state)
+        completed += st.emitted
+        skipped += st.skipped
+        units_sum += float(s.emit_units_sum.sum())
+        acc_sum += float(s.emit_acc_sum.sum())
+        harvested += st.energy_harvested_j
+        work += st.energy_on_work_j
+        per_wl[wl.name] = {"workers": int(cnt), "completed": st.emitted}
+    return {
+        "mode": "independent",
+        "n_workers": n_workers,
+        "backend": "torch",
+        "completed": completed,
+        "skipped": skipped,
+        "throughput_rps": completed / (n_steps * dt),
+        "mean_units": units_sum / max(completed, 1),
+        "mean_expected_accuracy": acc_sum / max(completed, 1),
+        "per_workload": per_wl,
+        "energy": {"harvested_j": harvested, "work_j": work,
+                   "j_per_completed": work / max(completed, 1),
+                   "conservation_ok": bool(harvested + 1e-9 >= work)},
+    }
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--workers", type=int, default=256)
@@ -192,15 +268,18 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--mix", default="0.4,0.3,0.3")
     ap.add_argument("--period", type=float, default=10.0,
                     help="per-worker sampling period; the request rate is "
-                         "workers/period")
+                         "workers/period so both modes see the same load")
     ap.add_argument("--scheduler", choices=("on", "off", "both"),
-                    default="on")
+                    default="both")
     ap.add_argument("--backend", choices=("numpy", "jax", "torch"),
                     default="torch")
-    ap.add_argument("--kernel", choices=("xla", "q32", "pallas", "cuda"),
+    ap.add_argument("--kernel", choices=("xla", "q32", "pallas", "cuda",
+                                         "f64"),
                     default="cuda",
-                    help="serve-tick kernel: the CUDA kernel (cuda) or its "
-                         "plain PyTorch int32 twin (q32)")
+                    help="scheduled fleet's tick: the int32 CUDA serve-tick "
+                         "kernel (cuda), its plain PyTorch twin (q32), or "
+                         "the float64 tick with the CUDA harvest kernel "
+                         "(f64, the reference's xla)")
     ap.add_argument("--mesh-fleet", type=int, default=1)
     ap.add_argument("--rebalance-every", type=float, default=0.0)
     ap.add_argument("--fleet-placement",
@@ -237,6 +316,9 @@ def main(argv: list[str] | None = None) -> dict:
                     help="torch device holding the fleet (default cuda)")
     args = ap.parse_args(argv)
 
+    if args.kernel == "xla":
+        ap.error("--kernel xla is the reference's name for the float64 "
+                 "tick; the port calls it --kernel f64")
     for name, ok in PORTED_VALUES.items():
         value = getattr(args, name)
         if value not in ok:
@@ -267,15 +349,26 @@ def main(argv: list[str] | None = None) -> dict:
     if args.hetero_mcu:
         ap_w = hetero_mcu(args.workers, args.seed)
     out: dict = {"config": vars(args)}
-    out["scheduled"] = run_scheduled(
-        power, args.dt, args.workers, workloads,
-        rate_rps=args.workers / args.period, mix=mix, n_steps=n_steps,
-        seed=args.seed, max_batch=args.max_batch,
-        shed_after_s=args.shed_after, sched=args.sched, lookahead_s=args.lookahead,
-        forecaster=args.forecaster, forecaster_fit=args.forecaster_fit,
-        capacitance_f=cf, v_max=vm, active_power_w=ap_w,
-        kernel=args.kernel, persist=args.persist, grace_s=args.grace,
-        device=args.device)
+    if args.scheduler in ("on", "both"):
+        out["scheduled"] = run_scheduled(
+            power, args.dt, args.workers, workloads,
+            rate_rps=args.workers / args.period, mix=mix, n_steps=n_steps,
+            seed=args.seed, max_batch=args.max_batch,
+            shed_after_s=args.shed_after, sched=args.sched,
+            lookahead_s=args.lookahead, forecaster=args.forecaster,
+            forecaster_fit=args.forecaster_fit, capacitance_f=cf, v_max=vm,
+            active_power_w=ap_w, kernel=args.kernel, persist=args.persist,
+            grace_s=args.grace, device=args.device)
+    if args.scheduler in ("off", "both"):
+        out["independent"] = run_independent(
+            power, args.dt, args.workers, workloads, mix=mix,
+            period_s=args.period, n_steps=n_steps, seed=args.seed,
+            capacitance_f=cf, v_max=vm, active_power_w=ap_w,
+            device=args.device)
+    if "scheduled" in out and "independent" in out:
+        out["speedup_completed"] = (
+            out["scheduled"]["completed"]
+            / max(out["independent"]["completed"], 1))
     print(json.dumps(out, indent=1, default=str))
     if args.json:
         with open(args.json, "w") as f:

@@ -22,6 +22,7 @@ from repro.fleet import qtick as RQ
 from repro.fleet import sched as RS
 from repro.launch import fleet as RL
 
+from repro_torch.core.policies import Greedy, Smart
 from repro_torch.fleet import qtick as PQ
 from repro_torch.fleet import sched as PS
 from repro_torch.fleet.state import from_reference
@@ -43,10 +44,17 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
+COST_FIELDS = ("unit_costs", "emit_cost", "fixed_cost")
+
+
 def _assert_fields_equal(ref, port, names):
     for f in names:
         a, b = getattr(ref, f), getattr(port, f)
-        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        if f == "tables":  # each side's own CostTable class
+            assert len(a) == len(b), f
+            for ta, tb in zip(a, b):
+                _assert_fields_equal(ta, tb, COST_FIELDS)
+        elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
             a, b = np.asarray(a), np.asarray(b)
             assert a.dtype == b.dtype and a.shape == b.shape, f
             assert np.array_equal(a, b), f
@@ -84,8 +92,7 @@ def test_workload_tables_equal_reference(name):
     port = PL.WORKLOAD_FACTORIES[name]()
     assert ref.name == port.name and ref.floor == port.floor
     assert np.array_equal(ref.accuracy, port.accuracy)
-    _assert_fields_equal(ref.costs, port.costs,
-                         ("unit_costs", "emit_cost", "fixed_cost"))
+    _assert_fields_equal(ref.costs, port.costs, COST_FIELDS)
     assert np.array_equal(ref.costs.cumulative(), port.costs.cumulative())
 
 
@@ -105,6 +112,30 @@ def test_fleet_params_and_quantization_equal_reference(n, hetero):
     rq = RQ.quantize_fleet(ref.params)
     pq = PQ.quantize_fleet(port.params)
     _assert_fields_equal(rq, pq, [f.name for f in dataclasses.fields(pq)])
+
+
+def test_local_fleet_params_convert_from_reference():
+    """A float64 local-mode fleet converts with its cost table and its
+    policy as the port's own classes, equal field for field."""
+    from repro.core.policies import Smart as RefSmart
+    from repro.fleet.worker import FleetWorkerPool as RefPool
+    power = RL.make_power_matrix(["SOM", "SIR"], 2, 5.0, DT, 1)
+    ref_wl, port_wl = RL.WORKLOAD_FACTORIES["har"](), PL.WORKLOAD_FACTORIES[
+        "har"]()
+    kw = dict(mode="local", n_workers=8, accuracy_table=ref_wl.accuracy,
+              sampling_period_s=7.5, phase=np.arange(8) * 37)
+    ref = RefPool(power, DT, workloads=[ref_wl.costs],
+                  policy=RefSmart(0.7), backend="numpy", **kw)
+    port = PortPool(power, DT, workloads=[port_wl.costs], policy=Smart(0.7),
+                    kernel="f64", device="cpu", **kw)
+    fp, fs, _, _ = from_reference(ref.params, ref.state, device="cpu")
+    names = [f.name for f in dataclasses.fields(fp)]
+    _assert_fields_equal(ref.params, port.params,
+                         [f for f in names if f != "policy"])
+    _assert_fields_equal(fp, port.params, names)
+    assert fp.quantum_j is None and fp.mode == "local"
+    assert type(fp.policy) is Smart and fp.policy.min_accuracy == 0.7
+    assert fs.v.dtype == torch.float64 and fs.cycles.dtype == torch.int64
 
 
 @pytest.mark.parametrize("n", [1, 64])
@@ -157,9 +188,13 @@ def test_port_imports_no_jax_and_no_reference():
         "sys.modules['jax'] = None\n"
         "import repro_torch\n"
         "import repro_torch.launch.fleet\n"
+        "import repro_torch.core.policies\n"
+        "import repro_torch.kernels.harvest_step\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert {'repro_torch.core.policies', "
+        "'repro_torch.kernels.harvest_step'} <= set(sys.modules)\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not "
         "None and (m == 'repro' or m.startswith(('repro.', 'jax'))))\n"
         "assert not bad, bad\n"
@@ -177,11 +212,14 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     power = PL.make_power_matrix(["SOM"], 1, 1.0, DT)
     wls = [PL.WORKLOAD_FACTORIES["har"]()]
-    for kernel in ("cuda", "q32"):
+    for kernel in ("cuda", "q32", "f64"):
         with pytest.raises(RuntimeError, match="cuda"):
             PL.run_scheduled(power, DT, 4, wls, rate_rps=1.0,
                              mix=np.array([1.0]), n_steps=10,
                              kernel=kernel)
+    with pytest.raises(RuntimeError, match="cuda"):
+        PL.run_independent(power, DT, 4, wls, mix=np.array([1.0]),
+                           period_s=10.0, n_steps=10)
     with pytest.raises(RuntimeError, match="cuda"):
         PortPool(power, DT, workloads=[wls[0].costs], n_workers=2)
 
@@ -205,16 +243,39 @@ def test_unported_values_raise():
                  kernel="pallas", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         PortPool(power, DT, workloads=[wls[0].costs], n_workers=2,
-                 mode="local", device="cpu")
+                 persist="ckpt", kernel="f64", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         PL.run_scheduled(power, DT, 2, wls, rate_rps=1.0,
                          mix=np.array([1.0]), n_steps=10, sched="forecast",
                          kernel="q32", device="cpu")
-    for flags in (["--scheduler", "both"], ["--kernel", "xla"],
-                  ["--stream"], ["--mesh-fleet", "2"],
-                  ["--persist", "ckpt"], ["--obs", "tele"]):
+    for flags in (["--kernel", "xla"], ["--kernel", "pallas"],
+                  ["--backend", "numpy"], ["--stream"],
+                  ["--mesh-fleet", "2"], ["--persist", "ckpt"],
+                  ["--obs", "tele"], ["--sched", "forecast"]):
         with pytest.raises(SystemExit):
             PL.main(flags + ["--device", "cpu", "--workers", "2"])
+
+
+def test_kernel_xla_exits_naming_f64(capsys):
+    """The reference's ``--kernel xla`` is not a second name for the
+    float64 tick: it exits and names the port's ``f64``."""
+    with pytest.raises(SystemExit):
+        PL.main(["--kernel", "xla", "--device", "cpu", "--workers", "2"])
+    assert "--kernel f64" in capsys.readouterr().err
+
+
+def test_quantized_kernels_refuse_local_mode():
+    power = PL.make_power_matrix(["SOM"], 1, 1.0, DT)
+    har = PL.WORKLOAD_FACTORIES["har"]()
+    for kernel in ("q32", "cuda"):
+        with pytest.raises(ValueError, match="local mode stays float64"):
+            PortPool(power, DT, workloads=[har.costs], n_workers=2,
+                     mode="local", policy=Greedy(),
+                     accuracy_table=har.accuracy, kernel=kernel,
+                     device="cpu")
+    with pytest.raises(ValueError, match="local mode needs"):
+        PortPool(power, DT, workloads=[har.costs], n_workers=2,
+                 mode="local", kernel="f64", device="cpu")
 
 
 def test_cli_serves_on_cpu(tmp_path):
